@@ -17,7 +17,7 @@ import tempfile
 import jax
 
 # the SH 2/4-stream sweep below needs float64 (rt/sh.py conditioning
-# note); x64 runs correctly (emulated) on TPU
+# note)
 jax.config.update('jax_enable_x64', True)
 
 import numpy as np

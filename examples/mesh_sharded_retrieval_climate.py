@@ -1,7 +1,7 @@
 """Device-mesh SPMD: sharded retrieval likelihoods + a sharded RCE solve.
 
 Demonstrates the two whole-workload mesh surfaces (SURVEY.md §2.4's
-TPU-equivalents of the reference's MPI pool and serial climate loop):
+device-mesh equivalents of the reference's MPI pool and serial climate loop):
 
 1. A nested-sampling retrieval whose likelihood batches shard live
    points over the mesh 'batch' axis and wavelengths over 'wave'
@@ -11,8 +11,8 @@ TPU-equivalents of the reference's MPI pool and serial climate loop):
    the find_strat zone search) running SPMD on the mesh via
    ``case.climate(opa, mesh=...)``.
 
-Runs anywhere: on a real multi-chip TPU slice the mesh axes map to
-chips over ICI; here it uses 8 virtual CPU devices so the example is
+Runs anywhere: on a multi-GPU host the mesh axes map to
+the cards; here it uses 8 virtual CPU devices so the example is
 self-contained.
 """
 

@@ -2,7 +2,7 @@
 
 Miniature of the reference's free-retrieval template
 (retrieval.py:38 create_template / scripts/free_retrieval.py) in the
-TPU-native shape: every likelihood batch the sampler proposes becomes ONE
+Device-batched shape: every likelihood batch the sampler proposes becomes ONE
 batched fused forward (`pipeline.stack_scenes` + `forward_batch`) — the
 vmap replacement for the reference's MPI likelihood pool
 (driver.py:406-427).

@@ -99,7 +99,7 @@ def loglike(theta):
 
 
 # ensemble MCMC: one fixed-size walker batch per step = one device
-# dispatch per step (the TPU-native replacement for an MPI pool)
+# dispatch per step (the batched replacement for an MPI pool)
 rng = np.random.default_rng(0)
 nwalkers, nsteps = 16, 120
 p0 = np.stack([1500.0 + 200.0 * rng.standard_normal(nwalkers),   # T [K]

@@ -1,11 +1,13 @@
-"""picaso_tpu: TPU-native exoplanet/brown-dwarf spectroscopy, climate, and
-retrieval framework (JAX/XLA/Pallas).
+"""picaso_tpu: exoplanet and brown-dwarf spectroscopy, climate and
+retrieval in JAX.
 
 A ground-up reimplementation of the capabilities of PICASO
-(natashabatalha/picaso) designed for TPU hardware: HBM-resident opacity
-grids, vmapped/sharded radiative-transfer kernels over the wavelength axis,
-jit-compiled climate iteration, and device-mesh parallelism for phase
-curves, model grids, and retrievals.
+(natashabatalha/picaso) around compiled device programs: opacity grids
+resident in device memory, radiative-transfer kernels vectorized over the
+wavelength axis, jit-compiled climate iteration, and device-mesh
+parallelism for phase curves, model grids and retrievals.  It runs on an
+NVIDIA GPU (the Toon89 spectrum solve has a fused kernel there) and on
+the host CPU, which the tests use.
 
 Subsystem map (see README.md):
 justdoit (user API) / pipeline (fused forward) / rt (kernels) /
@@ -23,34 +25,38 @@ import os as _os
 def _enable_compilation_cache():
     """Persistent XLA compilation cache, on by default.
 
-    Cold-start wall-clock is a first-class metric for the climate solver
-    (BASELINE: RCE end-to-end < 60 s): with a warmed disk cache a fresh
-    process skips the 30-60 s XLA compile of the fused Newton programs
-    (measured 158 s -> 44 s end-to-end on TPU v5e).  Opt out with
-    PICASO_TPU_NO_COMPILE_CACHE=1 or point the dir elsewhere with
-    PICASO_TPU_COMPILE_CACHE=<dir>.
+    A fresh process then skips the compile of the large fused programs
+    (the production forward, the climate Newton solve).  Where
+    ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it and nothing is set
+    here; otherwise the cache lives in ``.jax_cache`` at the root of the
+    checkout, a fixed path, so that later processes find it.
     """
-    if _os.environ.get('PICASO_TPU_NO_COMPILE_CACHE') == '1':
+    if _os.environ.get('JAX_COMPILATION_CACHE_DIR'):
         return
     import jax
 
-    cache_dir = _os.environ.get(
-        'PICASO_TPU_COMPILE_CACHE',
-        _os.path.join(_os.path.expanduser('~'), '.cache',
-                      'picaso_tpu_xla'))
-    try:
-        jax.config.update('jax_compilation_cache_dir', cache_dir)
-        jax.config.update('jax_persistent_cache_min_compile_time_secs',
-                          1.0)
-    except Exception:
-        pass  # older jax without the knobs — cache is an optimization only
+    jax.config.update('jax_compilation_cache_dir', _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        '.jax_cache'))
+    jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
 
 
 _enable_compilation_cache()
 
-from . import constants, units
-from .disco import make_geometry
-from .justdoit import inputs, opannection, picaso
+from . import constants, units  # noqa: E402
+from .disco import make_geometry  # noqa: E402
+
+_LAZY = {'inputs', 'opannection', 'picaso'}
+
+
+def __getattr__(name):
+    # the user API needs pandas; importing it lazily keeps the compiled
+    # core (pipeline, rt, opacities) on jax, numpy and scipy alone
+    if name in _LAZY:
+        from . import justdoit
+        return getattr(justdoit, name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+
 
 __all__ = ['inputs', 'opannection', 'picaso', 'make_geometry', 'constants',
            'units', '__version__']

@@ -1,6 +1,6 @@
 """Atmosphere state: profile parsing and derived hydrostatic structure.
 
-TPU-native equivalent of the reference ``ATMSETUP`` class
+JAX equivalent of the reference ``ATMSETUP`` class
 (``/root/reference/picaso/atmsetup.py``).  Instead of a mutable class that is
 deep-copied per facet, the atmosphere is a frozen :class:`Atmosphere` bundle
 of arrays built once on the host; every derived quantity (mmw, altitude,

@@ -1,1 +1,1 @@
-"""Radiative-convective equilibrium climate solver (TPU-native)."""
+"""Radiative-convective equilibrium climate solver in JAX."""

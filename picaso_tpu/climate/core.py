@@ -1,7 +1,7 @@
 """Radiative-convective equilibrium core: fluxes, profile reconstruction,
 and the Newton-Raphson flux-zeroing solver.
 
-TPU redesign of the reference climate internals (climate.py:805-1553
+Device-first redesign of the reference climate internals (climate.py:805-1553
 ``t_start``, :1687-1952 ``get_fluxes``):
 
 * the correlated-k gauss loop and the disk angles are vmapped axes of one

@@ -2,8 +2,7 @@
 
 The reference drives its Newton solver from Python with ~10^3 small kernel
 invocations per climate run (climate.py:805-1553).  Host-driven dispatch is
-untenable on an accelerator (and catastrophic over a remote-TPU link), so
-here the ENTIRE profile iteration — equilibrium-chemistry refresh, mmw /
+untenable on an accelerator, so here the ENTIRE profile iteration — equilibrium-chemistry refresh, mmw /
 column-density update, CK + CIA + Rayleigh opacity assembly, delta-Eddington
 fusion, and the Newton-Raphson flux zeroing with its batched Jacobian and
 backtracking line search — compiles to a single jitted program driven by
@@ -95,7 +94,7 @@ def build_opacities(temp, data: ClimateData, chem: ChemGrid, ck: CKArrays,
 
     mix_level = chem_interp(chem, temp, p_bar)          # [nlevel, nspecies]
     w = jnp.asarray(config.weights)
-    mmw_level = mix_level @ w
+    mmw_level = jnp.matmul(mix_level, w, precision=jax.lax.Precision.HIGHEST)
     mmw_layer = 0.5 * (mmw_level[1:] + mmw_level[:-1])
     mix_layer = 0.5 * (mix_level[1:] + mix_level[:-1])  # [nlayer, nspecies]
     colden = (plevel[1:] - plevel[:-1]) / data.gravity
@@ -259,7 +258,7 @@ def newton_solve(temp, props, zones: ZoneMaps, data: ClimateData,
         step_max_next = jnp.where(data.egp_stepmax, step_max_c, step_cmp)
 
         A = jacobian(temp, temp_old, fni, fnil)
-        g = A.T @ f_vec
+        g = jnp.matmul(A.T, f_vec, precision=jax.lax.Precision.HIGHEST)
         p_step = jnp.linalg.solve(A, -f_vec)
 
         dflux0 = f_vec

@@ -1,7 +1,7 @@
 """Physical constants in CGS units.
 
 The reference framework (picaso) pulls these from astropy
-(``atmsetup.py:40-63``); we hard-code the CODATA values so the TPU build has
+(``atmsetup.py:40-63``); we hard-code the CODATA values so the build has
 no astropy dependency.  All RT math in this package is CGS:
 
 * fluxes        : erg / s / cm^2 / cm^-1 (per wavenumber) or per cm

@@ -1,6 +1,6 @@
 """Disk geometry: Gauss-Chebyshev 'disco ball' angles and disk integration.
 
-TPU-native reimplementation of the reference geometry layer
+JAX reimplementation of the reference geometry layer
 (``/root/reference/picaso/disco.py``).  Angle construction is tiny host-side
 numpy run once per scene; disk compression is a jittable weighted reduction
 over the (gauss, chebyshev) facet axes, which in this framework are *batch
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -156,7 +157,8 @@ def compress_disco(xint_at_top, gweight, tweight, cos_theta, F0PI):
     nt = xint_at_top.shape[1]
     sym_fac = 2.0 * jnp.pi if nt == 1 else 1.0
     w = gweight[:, None] * tweight[None, :]
-    albedo = jnp.einsum('gtw,gt->w', xint_at_top, w)
+    albedo = jnp.einsum('gtw,gt->w', xint_at_top, w,
+                        precision=jax.lax.Precision.HIGHEST)
     return sym_fac * 0.5 * albedo / F0PI * (cos_theta + 1.0)
 
 
@@ -168,5 +170,6 @@ def compress_thermal(flux_at_top, gweight, tweight):
     nt = flux_at_top.shape[1]
     sym_fac = 1.0 if nt == 1 else 1.0 / (2.0 * jnp.pi)
     w = gweight[:, None] * tweight[None, :]
-    flux = jnp.einsum('gt...,gt->...', flux_at_top, w)
+    flux = jnp.einsum('gt...,gt->...', flux_at_top, w,
+                      precision=jax.lax.Precision.HIGHEST)
     return flux * sym_fac

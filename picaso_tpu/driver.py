@@ -6,7 +6,7 @@ Port of the reference ``driver.py`` against the same TOML schema
 forward model; [retrieval.*] blocks declare priors over dotted config
 paths.  The reference farms dynesty likelihoods to MPI ranks
 (driver.py:383-427); here the sampler batch (live points / walkers)
-evaluates vectorized through the TPU forward model, and checkpoint/resume
+evaluates vectorized through the device forward model, and checkpoint/resume
 rides on :func:`picaso_tpu.sampler.nested_sample`.
 """
 

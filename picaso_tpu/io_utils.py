@@ -275,7 +275,7 @@ def save_model(filename, case, out, calculation='all', meta=None):
     """Persist a computed model: spectra + profile + inputs.
 
     ``.nc`` paths write the reference's NetCDF layout (save_model_nc);
-    anything else writes the legacy self-describing HDF5 layout.  The TPU
+    anything else writes the legacy self-describing HDF5 layout.  The JAX
     analog of output_xarray (justdoit.py:705): everything needed to
     re-plot or re-run lives in one self-describing file.
     """

@@ -3,7 +3,7 @@
 This module mirrors the ergonomics of the reference's ``justdoit``
 (``/root/reference/picaso/justdoit.py``): ``opannection()`` +
 ``inputs().phase_angle/gravity/star/atmosphere/clouds/approx/spectrum()``.
-The internals are redesigned TPU-first:
+The internals are redesigned device-first:
 
 * the opacity database loads ONCE into HBM-resident grids
   (:mod:`picaso_tpu.opacities.db`); per-spectrum calls do zero host I/O
@@ -102,7 +102,7 @@ def SH_calculate_fluxes_options(printout=True):
 class Opacity:
     """Connected opacity source: wavenumber grid + device-resident tables.
 
-    The TPU analog of the reference ``RetrieveOpacities``/``RetrieveCKs``
+    The device analog of the reference ``RetrieveOpacities``/``RetrieveCKs``
     union.  ``grid`` is None for analytic (test-mode) connections.
     """
 
@@ -163,8 +163,8 @@ class Opacity:
 def opannection(wave_range=None, filename_db=None, raman_db=None,
                 resample=1, method='resampled', ck_db=None, wno_grid=None,
                 molecules=None, verbose=True, ck_table=None,
-                query_method='linear', blocked=False, **kwargs):
-    """Connect to an opacity source (TPU analog of justdoit.py:1296-1419).
+                query_method='linear', **kwargs):
+    """Connect to an opacity source (analog of justdoit.py:1296-1419).
 
     Parameters
     ----------
@@ -216,12 +216,6 @@ def opannection(wave_range=None, filename_db=None, raman_db=None,
         filename_db = default
     grid = load_opacity_db(filename_db, wave_range=wave_range,
                            resample=resample, molecules=molecules)
-    if blocked:
-        # wavelength-block-major copy for the fast Pallas gather (one
-        # extra table-sized HBM allocation; see OpacityGrid).
-        # blocked='int16' stores that copy quantized: half the extra HBM
-        # and half the gather traffic at ~1e-3 dex error.
-        grid = grid.with_blocked_table(quantize=(blocked == 'int16'))
     return Opacity(np.asarray(grid.wno), grid=grid, raman_db=raman_table,
                    query_method=query_method)
 
@@ -832,7 +826,7 @@ class inputs:
         eddysed solve for every (lon, lat) column and stores the cloud
         arrays [nlayer, nwno, nlon, nlat] on the GCM grid; facet columns
         are selected at spectrum time by the same nearest-neighbour
-        regrid as the atmosphere (three_d.regrid_to_disco) — the TPU
+        regrid as the atmosphere (three_d.regrid_to_disco) — the JAX
         build's replacement for the reference's joblib fan-out +
         xarray regrid.
         """
@@ -1129,8 +1123,15 @@ class inputs:
         self.inputs['climate']['beam_profile'] = beam_profile
 
     def climate(self, opacityclass, **kw):
+        """Radiative-convective equilibrium solve (climate/api.py).
+
+        Runs in float64 whatever the process default: the upper
+        atmosphere's radiative balance is a small difference of large
+        fluxes, and in float32 the solve stalls or settles tens of K away
+        from the float64 profile (PERF.md, PR 1)."""
         from .climate.api import run_climate
-        return run_climate(self, opacityclass, **kw)
+        with jax.enable_x64(True):
+            return run_climate(self, opacityclass, **kw)
 
     def effective_temp(self, teff=None):
         return self.T_eff(teff)
@@ -1158,7 +1159,7 @@ class inputs:
 
     def phase_curve(self, opacityclass, full_output=False, n_cpu=1,
                     verbose=True, batched=None, mesh=None):
-        """Phase-curve fan-out (TPU analog of justdoit.py:4741-4777).
+        """Phase-curve fan-out (analog of justdoit.py:4741-4777).
 
         With 1D profiles the phase axis becomes a vmapped batch of ONE
         fused XLA program (optionally sharded over a mesh 'batch' axis)
@@ -1215,7 +1216,7 @@ class inputs:
     def _phase_curve_batched(self, opacityclass, phases, calculation,
                              all_geom, all_profiles, all_clds, mesh=None,
                              verbose=True):
-        """All phases as ONE batched fused program (VERDICT r1 item #6)."""
+        """All phases as ONE batched fused program."""
         import dataclasses as _dc
         from . import pipeline as _pl
 
@@ -1243,16 +1244,17 @@ class inputs:
             thermal='thermal' in calculation,
             transmission='transmission' in calculation)
         batch = _pl.stack_scenes(scenes)
-        if mesh is not None:
-            from . import parallel as _par
-            batch = _par.shard_scene(batch, mesh, batched=True)
-            grid = _par.shard_grid(opacityclass.grid, mesh)
-        else:
-            grid = opacityclass.grid
         if verbose:
             print(f'Batched phase curve: {len(phases)} phases in one '
                   'program')
-        res = _pl.forward_batch(batch, grid, config)
+        if mesh is not None:
+            from . import parallel as _par
+            res = _par.sharded_forward(
+                _par.shard_scene(batch, mesh, batched=True),
+                _par.shard_grid(opacityclass.grid, mesh), config, mesh,
+                batched=True)
+        else:
+            res = _pl.forward_batch(batch, opacityclass.grid, config)
 
         wno = np.asarray(opacityclass.wno)
         sa = self.inputs['star'].get('semi_major', np.nan)
@@ -1439,7 +1441,7 @@ def compute_rtprops(bundle, opacityclass, atm, fthin_cld=None,
 
 def picaso(bundle, opacityclass, dimension='1d', calculation='reflected',
            full_output=False, plot_opacity=False, as_dict=True):
-    """Top-level forward model (TPU port of justdoit.py:65-621)."""
+    """Top-level forward model (port of justdoit.py:65-621)."""
     inp = bundle.inputs
     wno = np.asarray(opacityclass.wno)
     nwno = opacityclass.nwno
@@ -2056,7 +2058,7 @@ class _ChemGridMixin:
     def _chem_3d_apply(self, grid):
         """Post-process chemistry onto a 3D GCM dict in ONE vectorized
         interpolation call (every column flattened into the batch axis) —
-        the TPU analog of the reference's joblib column fan-out
+        the batched analog of the reference's joblib column fan-out
         (justdoit.py:3560-3633)."""
         from . import chemistry as chem_mod
         data = self.inputs['atmosphere']['profile']

@@ -48,7 +48,7 @@ def build(force=False):
         raise RuntimeError('libsqlite3 shared library not found')
     # no -ffast-math: test_native.py asserts BIT parity of log10 output
     # with the numpy loader, and fast-math log10 results are not
-    # reproducible across hosts/compilers (round-1 ADVICE)
+    # reproducible across hosts/compilers
     cmd = ['g++', '-O3', '-std=c++17', '-march=native',
            '-fopenmp-simd', '-shared', '-fPIC', _SRC,
            sqlite, '-lpthread', '-o', _SO + '.tmp']

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -106,7 +107,8 @@ def molecular_tau(kappa, mix_cols, colden, mmw_layer, fac=None):
     w = mix_cols * colden[None, :] / mmw_layer[None, :]
     if fac is not None:
         w = w * fac[:, None]
-    return jnp.einsum('mlw,ml->lw', kappa, w.astype(kappa.dtype))
+    return jnp.einsum('mlw,ml->lw', kappa, w.astype(kappa.dtype),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def rayleigh_tau(sigma, mix_cols, colden, mmw_layer):
@@ -115,4 +117,5 @@ def rayleigh_tau(sigma, mix_cols, colden, mmw_layer):
     sigma: [nmol_ray, nwno] cross sections; mix_cols: [nmol_ray, nlayer].
     """
     w = mix_cols * colden[None, :] / mmw_layer[None, :]
-    return jnp.einsum('mw,ml->lw', sigma, w.astype(sigma.dtype))
+    return jnp.einsum('mw,ml->lw', sigma, w.astype(sigma.dtype),
+                      precision=jax.lax.Precision.HIGHEST)

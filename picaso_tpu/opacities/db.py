@@ -1,6 +1,6 @@
 """Monochromatic opacity database: sqlite -> HBM-resident grids.
 
-TPU-native replacement for the reference ``RetrieveOpacities``
+Device-resident replacement for the reference ``RetrieveOpacities``
 (``/root/reference/picaso/optics.py:1877-2402``).  The reference re-queries
 sqlite for the 4 nearest (T, P) neighbours of every layer on *every*
 spectrum call; here the whole (molecule, pt-grid, wavenumber) cube is loaded
@@ -83,38 +83,16 @@ class OpacityGrid(NamedTuple):
     # host-side metadata (static, not traced)
     molecules: tuple
     continuum_molecules: tuple
-    # optional wavelength-block-major copy [npt, nwb, nmol, block_w] for
-    # the contiguous-DMA Pallas gather (pallas_interp.blocked_table):
-    # 4.2x faster than gathering from the flat layout on TPU v5e.
-    # May be int16 fixed-point (see with_blocked_table(quantize=True)),
-    # in which case blocked_qparams carries the [scale, offset] pair.
-    log_kappa_blocked: Optional[jnp.ndarray] = None
-    blocked_qparams: Optional[jnp.ndarray] = None
 
     def tree_flatten(self):
         children = (self.wno, self.log_kappa, self.pt, self.cont_opa,
-                    self.cia_temps, self.log_kappa_blocked,
-                    self.blocked_qparams)
+                    self.cia_temps)
         aux = (self.molecules, self.continuum_molecules)
         return children, aux
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        return cls(*children[:5], *aux, *children[5:])
-
-    def with_blocked_table(self, block_w=16384, quantize=False):
-        """Return a copy carrying the blocked gather layout (adds one
-        extra table-sized HBM allocation; ``quantize=True`` stores it as
-        int16 fixed point — half the extra HBM and half the gather
-        traffic at ~1e-3 dex quantization error)."""
-        from .pallas_interp import blocked_table
-        if quantize:
-            q, qp = blocked_table(self.log_kappa, block_w=block_w,
-                                  quantize=True)
-            return self._replace(log_kappa_blocked=q, blocked_qparams=qp)
-        return self._replace(
-            log_kappa_blocked=blocked_table(self.log_kappa,
-                                            block_w=block_w))
+        return cls(*children, *aux)
 
 
 def load_opacity_db(db_filename, wave_range=None, resample=1,
@@ -218,16 +196,12 @@ def load_opacity_db(db_filename, wave_range=None, resample=1,
 # on-device interpolation
 # ---------------------------------------------------------------------------
 
-def _find_indices(pt: PTGrid, tlayer, player_bar, return_parity=False):
+def _find_indices(pt: PTGrid, tlayer, player_bar):
     """Neighbour indices + weights; port of optics.py:2048-2123.
 
     Returns (t_w [nlayer], p_w [nlayer], idx [4, nlayer]) where idx rows are
     (t_low,p_low), (t_hi,p_low), (t_hi,p_hi), (t_low,p_hi) flat grid indices
-    — the reference's weight-pairing order (see the stack site below),
-    which _parity_slots and the blocked-kernel weights depend on.
-    With ``return_parity`` additionally returns (t_low % 2, p_low % 2)
-    [each int32 [nlayer]] — the base-corner grid parities that drive the
-    blocked gather's slot-stable layout (pallas_interp._parity_slots).
+    — the reference's weight-pairing order (see the stack site below).
     """
     t_inv = 1.0 / tlayer
     p_log = jnp.log10(player_bar)
@@ -266,8 +240,6 @@ def _find_indices(pt: PTGrid, tlayer, player_bar, return_parity=False):
                      pt.t_offset[t_hi] + p_low,
                      pt.t_offset[t_hi] + p_hi,
                      pt.t_offset[t_low] + p_hi], axis=0)
-    if return_parity:
-        return t_w, p_w, idx, (t_low % 2, p_low % 2)
     return t_w, p_w, idx
 
 
@@ -280,8 +252,8 @@ def interp_molecular(opa: OpacityGrid, tlayer, player_bar):
 
     Bilinear interpolation in (1/T, log10 P) on log10 opacity, then 10**x
     times Avogadro => cm^2/g per unit mixing-ratio mass (optics.py:2290-2294).
-    The gather is [nmol, 4*nlayer, nwno] from HBM — contiguous in the
-    wavenumber lane axis, so it streams at full HBM bandwidth.
+    The gather is [nmol, 4*nlayer, nwno] from device memory, contiguous
+    along the wavenumber axis.
     """
     t_w, p_w, idx = _find_indices(opa.pt, tlayer, player_bar)
     k = opa.log_kappa[:, idx, :]    # [nmol, 4, nlayer, nwno]
@@ -289,9 +261,12 @@ def interp_molecular(opa: OpacityGrid, tlayer, player_bar):
                    t_w * (1 - p_w),
                    t_w * p_w,
                    (1 - t_w) * p_w], axis=0)     # [4, nlayer]
-    logk = jnp.einsum('mqlw,ql->mlw', k, w.astype(k.dtype))
+    # full f32 precision: the weights multiply log10 kappa ~ -30, where a
+    # TF32 product would cost ~0.03 dex (~7% in kappa)
+    logk = jnp.einsum('mqlw,ql->mlw', k, w.astype(k.dtype),
+                      precision=jax.lax.Precision.HIGHEST)
     # fold the Avogadro scaling into the exponent: 10**-50 underflows f32,
-    # 10**(-50 + 23.78) does not — keeps the full dynamic range on TPU
+    # 10**(-50 + 23.78) does not — keeps the full dynamic range
     return 10.0 ** (logk + float(np.log10(AVOGADRO)))
 
 

@@ -1,6 +1,6 @@
 """Opacity factory: build opacity databases (offline tooling).
 
-TPU-analog of the reference ``opacity_factory.py``: writes sqlite databases
+Analog of the reference ``opacity_factory.py``: writes sqlite databases
 in the exact schema consumed by :mod:`picaso_tpu.opacities.db` (and by the
 reference itself), and also builds *synthetic but physically-shaped*
 opacity sets in memory for tests and benchmarks — deterministic pseudo-line

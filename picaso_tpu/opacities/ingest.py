@@ -9,7 +9,7 @@ H2-, John H- bound-free, Bell & Berrington H- free-free), resample onto a
 constant-R grid, and write the reference-schema sqlite databases that
 :mod:`picaso_tpu.opacities.db` (and the reference itself) consume.
 
-Pure host-side numpy/pandas — ingestion runs once, offline; the TPU never
+Pure host-side numpy/pandas — ingestion runs once, offline; the device never
 sees these code paths.
 """
 

@@ -1,6 +1,6 @@
 """Optical-property assembly (single-scattering inputs for the RT kernels).
 
-TPU-native port of the semantics of ``/root/reference/picaso/optics.py:26-432``
+JAX port of the semantics of the reference's ``picaso/optics.py:26-432``
 (``compute_opacity``).  The host/device split is different from the reference:
 
 * opacity *lookup* (molecular/continuum interpolation in (T, P)) lives in

@@ -5,7 +5,7 @@ here the parallel axes are proper mesh axes of single SPMD programs:
 
 * ``wave``  — the wavelength grid (nwno up to ~5e4 monochromatic points) is
   embarrassingly parallel through the whole RT stack: every kernel treats
-  wavelength as the vector axis, so sharding it across ICI needs zero
+  wavelength as the vector axis, so sharding it across devices needs zero
   collectives until the final spectral integrals (bond albedo, Teff), which
   XLA lowers to a single psum over the wave axis.
 * ``batch`` — independent scenes (phase-curve points, grid-fit members,
@@ -13,7 +13,7 @@ here the parallel axes are proper mesh axes of single SPMD programs:
 
 Shard layout: every [..., nwno] array splits on its last axis; the opacity
 grid's [nmol, npt, nwno] cube likewise, so each chip holds only its slice of
-the database (the key to fitting full-resolution opacities in HBM).
+the database (the key to fitting full-resolution opacities in device memory).
 """
 
 from __future__ import annotations
@@ -28,8 +28,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from .opacities.db import OpacityGrid, PTGrid
 from .pipeline import SceneTensors, forward
 
-__all__ = ['make_mesh', 'shard_scene', 'shard_grid', 'sharded_forward',
-           'shard_climate', 'shard_climate_state', 'sharded_loglike']
+__all__ = ['make_mesh', 'scene_specs', 'grid_specs', 'shard_scene',
+           'shard_grid', 'sharded_forward', 'shard_climate',
+           'shard_climate_state', 'sharded_loglike']
 
 
 def make_mesh(n_wave=None, n_batch=1, devices=None):
@@ -47,61 +48,74 @@ def _wave_sharded_fields():
             'surf_reflect', 'raman_shifts', 'raman_pollack_row'}
 
 
+def scene_specs(scene: SceneTensors, batched: bool = False) -> SceneTensors:
+    """PartitionSpec per scene field: wave-sharded where the field has a
+    wno axis, replicated otherwise; with ``batched`` the leading axis of
+    each batched field shards over 'batch'."""
+    from .pipeline import _SCALARISH_RANK
+    out = {}
+    for name, val in scene._asdict().items():
+        # stack_scenes leaves batch-constant scalarish fields at their
+        # unbatched rank: no batch dim even when the rest is batched
+        rank = _SCALARISH_RANK.get(name)
+        lead = (('batch',) if batched
+                and not (rank is not None and np.ndim(val) == rank) else ())
+        if name in _wave_sharded_fields():
+            out[name] = P(*lead, *((None,) * (np.ndim(val) - 1 - len(lead))),
+                          'wave')
+        else:
+            out[name] = P(*lead) if lead and np.ndim(val) else P()
+    return SceneTensors(**out)
+
+
+def grid_specs(grid: OpacityGrid) -> OpacityGrid:
+    """PartitionSpec per opacity-grid field: the cube and every array
+    with a wno axis shard over 'wave', the (T, P) grid is replicated."""
+    return OpacityGrid(wno=P('wave'), log_kappa=P(None, None, 'wave'),
+                       pt=PTGrid(P(), P(), P(), P()),
+                       cont_opa=P(None, None, 'wave'), cia_temps=P(),
+                       molecules=grid.molecules,
+                       continuum_molecules=grid.continuum_molecules)
+
+
 def shard_scene(scene: SceneTensors, mesh: Mesh,
                 batched: bool = False) -> SceneTensors:
     """Place scene arrays: wave-sharded where they have a wno axis,
     replicated otherwise.  With ``batched`` the leading axis is the batch
     axis and shards over 'batch'."""
-    from .pipeline import _SCALARISH_RANK
-    out = {}
-    for name, val in scene._asdict().items():
-        # stack_scenes leaves batch-constant scalarish fields at their
-        # per-scene rank — those replicate (or wave-shard) with NO
-        # batch dim even when the rest of the scene is batched
-        rank = _SCALARISH_RANK.get(name)
-        lead = (('batch',) if batched
-                and not (rank is not None and np.ndim(val) == rank) else ())
-        if name in _wave_sharded_fields():
-            spec = P(*lead, *((None,) * (val.ndim - 1 - len(lead))), 'wave')
-        else:
-            spec = P(*lead) if lead and np.ndim(val) else P()
-        out[name] = jax.device_put(val, NamedSharding(mesh, spec))
-    return SceneTensors(**out)
+    return jax.tree_util.tree_map(
+        lambda x, spec: jax.device_put(x, NamedSharding(mesh, spec)),
+        scene, scene_specs(scene, batched))
 
 
 def shard_grid(grid: OpacityGrid, mesh: Mesh) -> OpacityGrid:
     """Shard the opacity database cube over the wave axis of the mesh."""
-    s_wave3 = NamedSharding(mesh, P(None, None, 'wave'))
-    s_wave1 = NamedSharding(mesh, P('wave'))
-    rep = NamedSharding(mesh, P())
-    blocked = grid.log_kappa_blocked
-    if blocked is not None:
-        # blocked layout [npt, nwb, nmol, block_w]: shard the block axis
-        blocked = jax.device_put(
-            blocked, NamedSharding(mesh, P(None, 'wave', None, None)))
-    return OpacityGrid(
-        wno=jax.device_put(grid.wno, s_wave1),
-        log_kappa=jax.device_put(grid.log_kappa, s_wave3),
-        pt=PTGrid(*(jax.device_put(x, rep) for x in grid.pt)),
-        cont_opa=jax.device_put(grid.cont_opa, s_wave3),
-        cia_temps=jax.device_put(grid.cia_temps, rep),
-        molecules=grid.molecules,
-        continuum_molecules=grid.continuum_molecules,
-        log_kappa_blocked=blocked,
-        blocked_qparams=(None if grid.blocked_qparams is None else
-                         jax.device_put(grid.blocked_qparams, rep)))
+    return jax.tree_util.tree_map(
+        lambda x, spec: jax.device_put(x, NamedSharding(mesh, spec)),
+        grid, grid_specs(grid))
 
 
-def sharded_forward(scene, grid, config, mesh):
+@partial(jax.jit, static_argnames=('config', 'mesh', 'batched'))
+def sharded_forward(scene, grid, config, mesh, batched=False):
     """Run the fused pipeline SPMD over the mesh.
 
-    Inputs must be placed with shard_scene/shard_grid; jit then propagates
-    the wave sharding through every kernel (the layer scans are local to
-    each shard — no communication until any cross-wavelength reduction).
+    Every stage of :func:`~picaso_tpu.pipeline.forward` is local to a
+    wavelength, so each device runs the whole forward (the fused GPU
+    kernel included) on its own slice of the wavelength grid and, with
+    ``batched`` (scenes from ``stack_scenes``), of the batch: the program
+    has no collective.  Outputs are [.., nwno] sharded the same way.
     """
-    # inputs carry NamedShardings; jit propagates them through the program
-    del mesh
-    return forward(scene, grid, config)
+    from .pipeline import forward_batch
+    fwd = forward_batch if batched else forward
+    lead = ('batch',) if batched else ()
+    keys = [k for k, on in (('albedo', config.reflected),
+                            ('thermal', config.thermal),
+                            ('transit_depth', config.transmission)) if on]
+    return jax.shard_map(
+        lambda s, g: fwd(s, g, config), mesh=mesh,
+        in_specs=(scene_specs(scene, batched), grid_specs(grid)),
+        out_specs={k: P(*lead, 'wave') for k in keys},
+        check_vma=False)(scene, grid)
 
 
 def shard_climate_state(state, mesh: Mesh):

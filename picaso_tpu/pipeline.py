@@ -35,7 +35,7 @@ from .rt.transit import transit_depth
 from . import disco as disco_mod
 
 __all__ = ['SceneTensors', 'SpectrumConfig', 'forward', 'forward_batch',
-           'gather_taugas',
+           'forward_reference', 'gather_taugas',
            'stack_scenes', 'scene_from_case']
 
 
@@ -96,21 +96,13 @@ class SpectrumConfig:
     sh_single_form: int = 0
     # SH working precision: 'auto' = f64 when x64 is enabled (oracle-
     # compatible), else the f32 incoming-grouping path (rt/sh.py
-    # precision note; max relative error ~2e-3, in-process on TPU)
+    # precision note; max relative error ~2e-3 against the f64 path)
     sh_precision: str = 'auto'
     test_mode: Optional[str] = None
     hard_surface: bool = False
     reflected: bool = True
     thermal: bool = True
     transmission: bool = False
-    # Pallas VMEM megakernels for the RT solves (rt/pallas_toon.py) —
-    # ~4.5x on TPU by eliminating scan-boundary HBM traffic.  Off by
-    # default so CPU tests and non-TPU backends take the scan path.
-    use_pallas: bool = False
-    # Build the 13-field optical-property set inside the RT megakernels
-    # (skips the RTProps HBM round trip); False falls back to
-    # combine_optics + the property-input megakernels for A/B timing.
-    fuse_optics: bool = True
 
     def mix_row(self, name):
         return dict(self.mix_index)[name]
@@ -139,53 +131,79 @@ def gather_taugas(scene: SceneTensors, grid: OpacityGrid,
                   config: SpectrumConfig):
     """The molecular-opacity gather stage alone: taugas [nlayer, nwno].
 
-    Exactly the first stage of :func:`forward` (Pallas blocked-DMA path
-    or the XLA gather fallback) — exposed so the benchmark's per-stage
-    roofline accounting times the memory-bound gather separately from
-    the VPU-bound RT kernels."""
-    nwno = grid.wno.shape[0]
-    nlayer = scene.tlayer.shape[0]
+    Exactly the first stage of :func:`forward`, exposed so the benchmark
+    can time the memory-bound gather on its own."""
     mix_cols = scene.mix[jnp.asarray([dict(config.mix_index)[grid.molecules[i]]
                                       for i in config.mol_indices])]
-    if config.use_pallas:
-        # gather-fused kernel: reads only the 4 neighbor rows per layer
-        # and writes taugas directly (opacities/pallas_interp.py); the
-        # blocked layout makes each row fetch one contiguous DMA
-        from .opacities.db import _find_indices
-        from .opacities.pallas_interp import (interp_tau_pallas,
-                                              interp_tau_pallas_blocked)
-        t_w, p_w, idx, parity = _find_indices(
-            grid.pt, scene.tlayer, scene.player / PCONV,
-            return_parity=True)
-        colw = scene.colden / scene.mmw_layer
-        mixcol = jnp.zeros((len(grid.molecules), nlayer),
-                           scene.mix.dtype)
-        for j, i in enumerate(config.mol_indices):
-            mixcol = mixcol.at[i].set(mix_cols[j] * colw)
-        if grid.log_kappa_blocked is not None:
-            return interp_tau_pallas_blocked(
-                grid.log_kappa_blocked, idx, t_w, p_w, mixcol, nwno,
-                qparams=grid.blocked_qparams, parity=parity)
-        return interp_tau_pallas(grid.log_kappa, idx, t_w, p_w, mixcol)
     kappa = interp_molecular(grid, scene.tlayer, scene.player / PCONV)
     kappa = kappa[jnp.asarray(config.mol_indices)]
     return assemble.molecular_tau(kappa, mix_cols, scene.colden,
                                   scene.mmw_layer)
 
 
-@partial(jax.jit, static_argnames=('config',))
-def forward(scene: SceneTensors, grid: OpacityGrid,
-            config: SpectrumConfig):
-    """Full 1D spectrum in one compiled program.
+def _toon_scan(tg, tr, rf, scene, grid, config):
+    """Toon89 TOA solve through the XLA scan path (rt/toon.py).
 
-    Returns a dict of device arrays: albedo [nwno], thermal flux [nwno],
-    transit depth [nwno] (keys present per config flags).
-    """
+    Returns (xint [ng, nt, nwno] or None, flux_top or None, dtau_og)."""
+    props = combine_optics(tg, tr, scene.cld_opd, scene.cld_w0,
+                           scene.cld_g0, rf, test_mode=config.test_mode,
+                           delta_eddington=config.delta_eddington,
+                           stream=config.stream)
+    xint = flux_top = None
+    if config.reflected:
+        xint, _ = toon.reflected_1d(
+            props.dtau, props.tau, props.w0, props.cosb, props.gcos2,
+            props.ftau_cld, props.ftau_ray, props.dtau_og, props.tau_og,
+            props.w0_og, props.cosb_og, scene.surf_reflect, scene.ubar0,
+            scene.ubar1, scene.cos_theta, scene.F0PI,
+            controls=config.controls, get_toa_intensity=True,
+            get_lvl_flux=False)
+    if config.thermal:
+        flux_top, _ = toon.thermal_1d(
+            scene.tlevel, props.dtau_og, props.w0_no_raman, props.cosb_og,
+            scene.plevel, scene.ubar1, scene.surf_reflect, grid.wno,
+            dwno=jnp.zeros(grid.wno.shape[0]),
+            hard_surface=config.hard_surface, calc_type=0)
+    return xint, flux_top, props.dtau_og
+
+
+def _toon_kernel(tg, tr, rf, scene, grid, config):
+    """The same contract as :func:`_toon_scan` through the fused GPU
+    kernel (rt/toon_kernel.py)."""
+    from .rt.toon_kernel import toon_spectrum
+    dtype = tg.dtype
+    all_b = toon.blackbody(scene.tlevel, 1.0 / grid.wno).astype(dtype)
+    ptfac = scene.plevel[0] / (scene.plevel[1] - scene.plevel[0])
+    xint, flux_top = toon_spectrum(
+        tg, tr, scene.cld_opd, scene.cld_w0, scene.cld_g0, rf, all_b, ptfac,
+        scene.surf_reflect, scene.ubar0, scene.ubar1, scene.cos_theta,
+        scene.F0PI, controls=config.controls, stream=config.stream,
+        delta_eddington=config.delta_eddington,
+        hard_surface=config.hard_surface, reflected=config.reflected,
+        thermal=config.thermal)
+    return xint, flux_top, tg + tr + scene.cld_opd
+
+
+def _toon_solve(tg, tr, rf, scene, grid, config):
+    """Toon89 TOA solve for the backend being lowered for: the fused
+    kernel on CUDA, the scan path elsewhere.  The analytic test modes
+    overwrite the optics, so they always take the scan path."""
+    if config.test_mode is not None or not (config.reflected
+                                            or config.thermal):
+        return _toon_scan(tg, tr, rf, scene, grid, config)
+    return jax.lax.platform_dependent(
+        tg, tr, rf, scene, grid,
+        cuda=partial(_toon_kernel, config=config),
+        default=partial(_toon_scan, config=config))
+
+
+def _forward(scene, grid, config, toon_rt):
+    """Body of :func:`forward`; ``toon_rt`` is the Toon89 TOA solve."""
     nwno = grid.wno.shape[0]
     nlayer = scene.tlayer.shape[0]
     dtype = scene.cld_opd.dtype
 
-    # ---- gas optics (HBM gather + fused arithmetic) ----
+    # ---- gas optics (device-memory gather + fused arithmetic) ----
     taugas = gather_taugas(scene, grid, config)
     if config.continuum_specs:
         cont = nearest_continuum(grid, scene.tlayer)
@@ -211,201 +229,77 @@ def forward(scene: SceneTensors, grid: OpacityGrid,
                                    scene.colden, scene.mmw_layer)
     rf = _raman_factor(config, scene, grid.wno, nwno)
 
-    if (config.use_pallas and config.fuse_optics and config.rt_method == 0
-            and config.test_mode is None):
-        # fused-optics fast path: the RT megakernels build the 13-field
-        # property set per wavelength block in VMEM, so RTProps is never
-        # materialized in HBM between the optics and RT stages
-        from .rt.pallas_toon import (reflected_pallas_fused,
-                                     spectrum_pallas_fused,
-                                     thermal_pallas_fused)
-        tg = taugas.astype(dtype)
-        tr = tauray.astype(dtype)
-        out = {}
-        if config.reflected and config.thermal:
-            # dual-pass megakernel: both RT solves stream the per-source
-            # inputs from HBM once (see _spectrum_kernel_fused)
-            all_b = toon.blackbody(scene.tlevel,
-                                   1.0 / grid.wno).astype(dtype)
-            ptfac = scene.plevel[0] / (scene.plevel[1] - scene.plevel[0])
-            xint, flux_top = spectrum_pallas_fused(
-                all_b, tg, tr, scene.cld_opd, scene.cld_w0, scene.cld_g0,
-                rf, ptfac, scene.surf_reflect, scene.ubar0, scene.ubar1,
-                scene.cos_theta, scene.F0PI, controls=config.controls,
-                stream=config.stream,
-                delta_eddington=config.delta_eddington,
-                hard_surface=config.hard_surface)
+    tg = taugas.astype(dtype)
+    tr = tauray.astype(dtype)
+    out = {}
+    if config.rt_method == 0:
+        xint, flux_top, dtau_og = toon_rt(tg, tr, rf, scene, grid, config)
+        if xint is not None:
             out['albedo'] = disco_mod.compress_disco(
                 xint, scene.gweight, scene.tweight, scene.cos_theta,
                 scene.F0PI)
-            out['thermal'] = disco_mod.compress_thermal(
-                flux_top, scene.gweight, scene.tweight)
-            if config.transmission:
-                out['transit_depth'] = transit_depth(
-                    scene.z, scene.dz, scene.rstar, scene.mmw_layer,
-                    scene.plevel, scene.tlevel, scene.colden,
-                    tg + tr + scene.cld_opd)
-            return out
-        if config.reflected:
-            xint = reflected_pallas_fused(
-                tg, tr, scene.cld_opd, scene.cld_w0, scene.cld_g0, rf,
-                scene.surf_reflect, scene.ubar0, scene.ubar1,
-                scene.cos_theta, scene.F0PI, controls=config.controls,
-                stream=config.stream,
-                delta_eddington=config.delta_eddington)
-            out['albedo'] = disco_mod.compress_disco(
-                xint, scene.gweight, scene.tweight, scene.cos_theta,
-                scene.F0PI)
-        if config.thermal:
-            all_b = toon.blackbody(scene.tlevel,
-                                   1.0 / grid.wno).astype(dtype)
-            ptfac = scene.plevel[0] / (scene.plevel[1] - scene.plevel[0])
-            flux_top = thermal_pallas_fused(
-                all_b, tg, tr, scene.cld_opd, scene.cld_w0, scene.cld_g0,
-                ptfac, scene.surf_reflect, scene.ubar1,
-                hard_surface=config.hard_surface)
+        if flux_top is not None:
             out['thermal'] = disco_mod.compress_thermal(
                 flux_top, scene.gweight, scene.tweight)
         if config.transmission:
             out['transit_depth'] = transit_depth(
                 scene.z, scene.dz, scene.rstar, scene.mmw_layer,
-                scene.plevel, scene.tlevel, scene.colden,
-                tg + tr + scene.cld_opd)
+                scene.plevel, scene.tlevel, scene.colden, dtau_og)
         return out
 
-    if (config.use_pallas and config.fuse_optics and config.rt_method == 1
-            and config.stream in (2, 4) and config.test_mode is None):
-        # SH 2/4 megakernels (rt/pallas_sh.py): optics + system assembly
-        # + block-Thomas + intensity per wavelength block in VMEM — the
-        # scan path materializes the assembled system and its per-layer
-        # carries in HBM (measured 7.5 -> see bench sh4 rates)
-        from .rt import pallas_sh
-        if config.stream == 2:
-            reflected_k = pallas_sh.reflected_sh2_pallas
-            thermal_k = pallas_sh.thermal_sh2_pallas
-        else:
-            reflected_k = pallas_sh.reflected_sh4_pallas
-            thermal_k = pallas_sh.thermal_sh4_pallas
-        tg = taugas.astype(dtype)
-        tr = tauray.astype(dtype)
-        out = {}
-        if config.reflected:
-            xint = reflected_k(
-                tg, tr, scene.cld_opd, scene.cld_w0, scene.cld_g0, rf,
-                scene.surf_reflect, scene.ubar0, scene.ubar1,
-                scene.cos_theta, scene.F0PI, controls=config.controls,
-                delta_eddington=config.delta_eddington,
-                w_single_form=config.sh_w_single_form,
-                w_multi_form=config.sh_w_multi_form,
-                psingle_form=config.sh_psingle_form,
-                w_single_rayleigh=config.sh_w_single_rayleigh,
-                w_multi_rayleigh=config.sh_w_multi_rayleigh,
-                psingle_rayleigh=config.sh_psingle_rayleigh,
-                single_form=config.sh_single_form)
-            out['albedo'] = disco_mod.compress_disco(
-                xint, scene.gweight, scene.tweight, scene.cos_theta,
-                scene.F0PI)
-        if config.thermal:
-            all_b = toon.blackbody(scene.tlevel,
-                                   1.0 / grid.wno).astype(dtype)
-            ptfac = scene.plevel[0] / (scene.plevel[1] - scene.plevel[0])
-            flux_top = thermal_k(
-                all_b, tg, tr, scene.cld_opd, scene.cld_w0, scene.cld_g0,
-                rf, ptfac, scene.surf_reflect, scene.ubar1,
-                hard_surface=config.hard_surface,
-                delta_eddington=config.delta_eddington)
-            out['thermal'] = disco_mod.compress_thermal(
-                flux_top, scene.gweight, scene.tweight)
-        if config.transmission:
-            # same total extinction the SH scan branch passes
-            # (props.dtau_og = taugas + tauray + cld_opd)
-            out['transit_depth'] = transit_depth(
-                scene.z, scene.dz, scene.rstar, scene.mmw_layer,
-                scene.plevel, scene.tlevel, scene.colden,
-                tg + tr + scene.cld_opd)
-        return out
-
-    props = combine_optics(taugas.astype(dtype), tauray.astype(dtype),
-                           scene.cld_opd, scene.cld_w0, scene.cld_g0, rf,
-                           test_mode=config.test_mode,
+    props = combine_optics(tg, tr, scene.cld_opd, scene.cld_w0,
+                           scene.cld_g0, rf, test_mode=config.test_mode,
                            delta_eddington=config.delta_eddington,
                            stream=config.stream)
-
-    out = {}
-    if config.rt_method == 1:
-        from .rt import sh as sh_mod
-        if config.reflected:
-            xint = sh_mod.reflected_sh(
-                props, scene.surf_reflect, scene.ubar0, scene.ubar1,
-                scene.cos_theta, scene.F0PI, stream=config.stream,
-                controls=config.controls,
-                w_single_form=config.sh_w_single_form,
-                w_multi_form=config.sh_w_multi_form,
-                psingle_form=config.sh_psingle_form,
-                w_single_rayleigh=config.sh_w_single_rayleigh,
-                w_multi_rayleigh=config.sh_w_multi_rayleigh,
-                psingle_rayleigh=config.sh_psingle_rayleigh,
-                single_form=config.sh_single_form,
-                precision=config.sh_precision)
-            out['albedo'] = disco_mod.compress_disco(
-                xint, scene.gweight, scene.tweight, scene.cos_theta,
-                scene.F0PI)
-        if config.thermal:
-            flux_top, _ = sh_mod.thermal_sh(
-                scene.tlevel, props, scene.plevel, scene.ubar1,
-                scene.surf_reflect, grid.wno, stream=config.stream,
-                hard_surface=config.hard_surface,
-                precision=config.sh_precision)
-            out['thermal'] = disco_mod.compress_thermal(
-                flux_top, scene.gweight, scene.tweight)
-        if config.transmission:
-            out['transit_depth'] = transit_depth(
-                scene.z, scene.dz, scene.rstar, scene.mmw_layer,
-                scene.plevel, scene.tlevel, scene.colden, props.dtau_og)
-        return out
+    from .rt import sh as sh_mod
     if config.reflected:
-        if config.use_pallas:
-            from .rt.pallas_toon import reflected_pallas
-            xint = reflected_pallas(
-                props.dtau, props.tau, props.w0, props.cosb, props.gcos2,
-                props.ftau_cld, props.ftau_ray, props.dtau_og, props.tau_og,
-                props.w0_og, props.cosb_og, scene.surf_reflect, scene.ubar0,
-                scene.ubar1, scene.cos_theta, scene.F0PI,
-                controls=config.controls)
-        else:
-            xint, _ = toon.reflected_1d(
-                props.dtau, props.tau, props.w0, props.cosb, props.gcos2,
-                props.ftau_cld, props.ftau_ray, props.dtau_og, props.tau_og,
-                props.w0_og, props.cosb_og, scene.surf_reflect, scene.ubar0,
-                scene.ubar1, scene.cos_theta, scene.F0PI,
-                controls=config.controls, get_toa_intensity=True,
-                get_lvl_flux=False)
+        xint = sh_mod.reflected_sh(
+            props, scene.surf_reflect, scene.ubar0, scene.ubar1,
+            scene.cos_theta, scene.F0PI, stream=config.stream,
+            controls=config.controls,
+            w_single_form=config.sh_w_single_form,
+            w_multi_form=config.sh_w_multi_form,
+            psingle_form=config.sh_psingle_form,
+            w_single_rayleigh=config.sh_w_single_rayleigh,
+            w_multi_rayleigh=config.sh_w_multi_rayleigh,
+            psingle_rayleigh=config.sh_psingle_rayleigh,
+            single_form=config.sh_single_form,
+            precision=config.sh_precision)
         out['albedo'] = disco_mod.compress_disco(
             xint, scene.gweight, scene.tweight, scene.cos_theta,
             scene.F0PI)
     if config.thermal:
-        if config.use_pallas:
-            from .rt.pallas_toon import thermal_pallas
-            all_b = toon.blackbody(scene.tlevel, 1.0 / grid.wno).astype(dtype)
-            tau_top = (props.dtau_og[0] * scene.plevel[0]
-                       / (scene.plevel[1] - scene.plevel[0]))
-            flux_top = thermal_pallas(
-                all_b, props.dtau_og, props.w0_no_raman, props.cosb_og,
-                tau_top, scene.surf_reflect, scene.ubar1,
-                hard_surface=config.hard_surface)
-        else:
-            flux_top, _ = toon.thermal_1d(
-                scene.tlevel, props.dtau_og, props.w0_no_raman,
-                props.cosb_og, scene.plevel, scene.ubar1,
-                scene.surf_reflect, grid.wno, dwno=jnp.zeros(nwno),
-                hard_surface=config.hard_surface, calc_type=0)
+        flux_top, _ = sh_mod.thermal_sh(
+            scene.tlevel, props, scene.plevel, scene.ubar1,
+            scene.surf_reflect, grid.wno, stream=config.stream,
+            hard_surface=config.hard_surface,
+            precision=config.sh_precision)
         out['thermal'] = disco_mod.compress_thermal(
             flux_top, scene.gweight, scene.tweight)
     if config.transmission:
         out['transit_depth'] = transit_depth(
-            scene.z, scene.dz, scene.rstar, scene.mmw_layer, scene.plevel,
-            scene.tlevel, scene.colden, props.dtau_og)
+            scene.z, scene.dz, scene.rstar, scene.mmw_layer,
+            scene.plevel, scene.tlevel, scene.colden, props.dtau_og)
     return out
+
+
+@partial(jax.jit, static_argnames=('config',))
+def forward(scene: SceneTensors, grid: OpacityGrid,
+            config: SpectrumConfig):
+    """Full 1D spectrum in one compiled program.
+
+    Returns a dict of device arrays: albedo [nwno], thermal flux [nwno],
+    transit depth [nwno] (keys present per config flags).
+    """
+    return _forward(scene, grid, config, _toon_solve)
+
+
+@partial(jax.jit, static_argnames=('config',))
+def forward_reference(scene: SceneTensors, grid: OpacityGrid,
+                      config: SpectrumConfig):
+    """:func:`forward` with the XLA scan Toon solve on every backend: the
+    plain reference the GPU kernel is checked and timed against."""
+    return _forward(scene, grid, config, _toon_scan)
 
 
 def stack_scenes(scenes):
@@ -441,9 +335,9 @@ def stack_scenes(scenes):
     return batch._replace(**updates)
 
 
-# small per-scene fields that feed the Pallas megakernels' scalar
-# (SMEM) arguments — a batch axis on these is unsupported by the Mosaic
-# vmap lowering, but across a retrieval batch they are identical anyway.
+# small per-scene geometry fields: across a retrieval batch they are
+# identical, so they stay unbatched (the Toon kernel then reads one copy
+# of the disk angles for the whole batch).
 # Values are each field's UNBATCHED rank: stack_scenes leaves a
 # batch-constant field at this rank, and forward_batch reads only the
 # rank (never the data) to pick the vmap axis.
@@ -459,11 +353,9 @@ def forward_batch(scenes: SceneTensors, grid: OpacityGrid,
 
     Geometry-like fields that are identical across the batch (the
     retrieval case — same disk nodes, different atmospheres) stay
-    unbatched (stack_scenes leaves them at their per-scene rank) so the
-    Pallas megakernel path stays usable; fields that genuinely vary per
-    scene (phase curves) keep their batch axis.  Hand-stacked inputs
-    with a batch axis on everything still work — they just take the
-    vmapped non-Pallas path for the scalarish fields."""
+    unbatched (stack_scenes leaves them at their per-scene rank); fields
+    that genuinely vary per scene (phase curves) keep their batch axis.
+    Hand-stacked inputs with a batch axis on everything work too."""
     axes = {}
     for name, val in scenes._asdict().items():
         rank = _SCALARISH_RANK.get(name)

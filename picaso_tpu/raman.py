@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pandas as pd
@@ -107,17 +108,18 @@ def raman_factor_oklopcic(wno, stellar_shifts, tlayer, cross_sections,
     shifted_wno = wno[None, :] + deltanu[:, None]           # [nrow, nwno]
     # cross sections are ~1e-45 and Q ~ 1e-53 — far below the f32 minimum
     # normal (1e-38), so un-normalized Q underflows to 0 and the factor
-    # becomes 0/0 on TPU.  The returned quantity is a ratio of Q-sums, so
+    # becomes 0/0 in f32.  The returned quantity is a ratio of Q-sums, so
     # any fixed rescale cancels exactly.
     cross_sections = cross_sections / jnp.max(jnp.abs(cross_sections))
     Q = cross_sections[:, None] / wno[None, :] ** 3.0 / shifted_wno
     is_ray = (deltanu == 0)[:, None]
     pop = j_at_temp[j_initial]                  # [nrow, nlayer]
 
-    ray = jnp.einsum('rl,rw->lw', pop * is_ray, Q)
+    hi = jax.lax.Precision.HIGHEST
+    ray = jnp.einsum('rl,rw->lw', pop * is_ray, Q, precision=hi)
     w_shift = jnp.einsum('rl,rw->lw', pop * (~is_ray),
-                         Q * stellar_shifts.T)
-    wo_shift = jnp.einsum('rl,rw->lw', pop * (~is_ray), Q)
+                         Q * stellar_shifts.T, precision=hi)
+    wo_shift = jnp.einsum('rl,rw->lw', pop * (~is_ray), Q, precision=hi)
     # far-IR wavelengths with wno < |deltanu| have unphysical negative
     # shifted wavenumbers whose Q terms can cancel the denominator to
     # ~0 (0/0 at f32); Raman corrections are meaningless there, so fall

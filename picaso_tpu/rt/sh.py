@@ -1,13 +1,13 @@
 """Spherical-harmonics radiative transfer (Rooney et al. 2023a,b), 2 & 4
 stream.
 
-TPU redesign of the reference SH path (``fluxes.py:2675-3628``): the
+Device-first redesign of the reference SH path (``fluxes.py:2675-3628``): the
 reference assembles 5/11-diagonal banded matrices and calls
 ``scipy.linalg.solve_banded`` once per wavelength (the #2 hot loop).  Here
 the same systems are assembled directly in *block-tridiagonal* form (s x s
 blocks, s = stream) and solved by a block-Thomas ``lax.scan``.
 
-Two TPU-shaped design decisions make this path fast (round 3; the round-2
+Two design decisions make this path fast (round 3; the round-2
 version ran the whole pipeline per disk angle and kept the s x s blocks in
 the minor-most array dims):
 
@@ -75,7 +75,7 @@ def _promote(arrays, precision):
         raise ValueError(
             "SH precision='f64' requires float64: enable it with "
             'jax.config.update("jax_enable_x64", True) — float64 '
-            'executes correctly (double-single emulated) on TPU — or '
+            'executes correctly on the device — or '
             "use precision='auto'/'f32' (incoming-grouping f32 path, "
             'max relative error ~2e-3; see rt/sh.py precision note).')
     target = jnp.float64 if precision == 'f64' else jnp.float32
@@ -297,7 +297,7 @@ def _sh2_system(w0, dtau, tau, a, b, b_top, b_surface, surf_reflect, ubar0,
     # i.e. the exp(+lam*t) mode is measured from the layer bottom): the
     # reference's unscaled system (fluxes.py:3260-3276) carries
     # exp(+lam*dtau) entries spanning e^{+-35}, which is fine in its
-    # float64 numpy but destroys the f32 block elimination on TPU.  With
+    # float64 numpy but destroys the f32 block elimination.  With
     # the scaling every matrix entry is O(Q), and consumers multiply the
     # solved X2' by bounded decaying exponentials only.
     def rows(m00, m01, m10, m11):

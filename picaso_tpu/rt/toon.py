@@ -1,4 +1,4 @@
-"""Toon et al. (1989) two-stream radiative transfer, TPU-native.
+"""Toon et al. (1989) two-stream radiative transfer in JAX.
 
 Reimplements the numba hot kernels of the reference
 (``/root/reference/picaso/fluxes.py``):
@@ -147,6 +147,80 @@ class FluxSet(NamedTuple):
     plus_mdpt: jnp.ndarray
 
 
+def _reflected_coefficients(w0, ftau_cld, cosb, controls):
+    """Two-stream coefficients (g1, g2, lamda, gama) of the reflected
+    solve (fluxes.py:1134-1141)."""
+    sq3 = jnp.sqrt(3.0).astype(w0.dtype)
+    if controls.toon_coefficients == 1:  # eddington (fluxes.py:1134)
+        g1 = (7.0 - w0 * (4.0 + 3.0 * ftau_cld * cosb)) / 4.0
+        g2 = -(1.0 - w0 * (4.0 - 3.0 * ftau_cld * cosb)) / 4.0
+    else:  # quadrature (fluxes.py:1137)
+        g1 = (sq3 * 0.5) * (2.0 - w0 * (1.0 + ftau_cld * cosb))
+        g2 = (sq3 * w0 * 0.5) * (1.0 - ftau_cld * cosb)
+    lamda = jnp.sqrt(g1 ** 2 - g2 ** 2)
+    # stable form of (g1 - lamda)/g2 (fluxes.py:1141): multiplying by
+    # (g1 + lamda)/(g1 + lamda) removes the g1 - sqrt(g1^2 - g2^2)
+    # cancellation that explodes at f32 when g2 -> 0 (pure absorption:
+    # 1-ulp rounding of the sqrt flips gama between ~0 and ~2)
+    gama = g2 / (g1 + lamda)
+    return g1, g2, lamda, gama
+
+
+def _beam_g3(ftau_cld, cosb, u0, controls):
+    """Beam-source coefficient g3 at incidence cosine u0."""
+    if controls.toon_coefficients == 1:  # eddington
+        return (2.0 - 3.0 * ftau_cld * cosb * u0) / 4.0
+    sq3 = jnp.sqrt(3.0).astype(cosb.dtype)
+    return 0.5 * (1.0 - sq3 * ftau_cld * cosb * u0)  # quadrature
+
+
+def _single_phase(controls, cosb_og, ftau_cld, ftau_ray, gcos2, cos_theta):
+    """Single-scattering phase function at the phase angle
+    (fluxes.py:1298-1373)."""
+    sp = controls.single_phase
+    if sp != 1:
+        g_forward = controls.constant_forward * cosb_og
+        g_back = controls.constant_back * cosb_og
+        fc = float(controls.frac_c)
+        g_back_pow = g_back ** (int(fc) if fc.is_integer() else fc)
+        f = controls.frac_a + controls.frac_b * g_back_pow
+        HG_fwd = (1 - g_forward ** 2) / jnp.sqrt(
+            (1 + g_forward ** 2 + 2 * g_forward * cos_theta) ** 3)
+        HG_back = (1 - g_back ** 2) / jnp.sqrt(
+            (1 + g_back ** 2 + 2 * g_back * cos_theta) ** 3)
+    if sp == 0:  # cahoy
+        return f * HG_fwd + (1 - f) * HG_back + gcos2
+    if sp == 1:  # OTHG
+        return (1 - cosb_og ** 2) / jnp.sqrt(
+            (1 + cosb_og ** 2 + 2 * cosb_og * cos_theta) ** 3)
+    if sp == 2:  # TTHG
+        return f * HG_fwd + (1 - f) * HG_back
+    if sp == 3:  # TTHG_ray
+        return (ftau_cld * (f * HG_fwd + (1 - f) * HG_back)
+                + ftau_ray * (0.75 * (1 + cos_theta * cos_theta)))
+    raise ValueError(f'unknown single_phase {sp}')
+
+
+def _multi_phase(controls, ftau_cld, cosb, gcos2, u1):
+    """Multiple-scattering Legendre terms (fluxes.py:1275-1287)."""
+    if controls.multi_phase == 0:  # N=2
+        ubar2 = 0.767
+        multi_plus = (1.0 + 1.5 * ftau_cld * cosb * u1
+                      + gcos2 * (3.0 * ubar2 * ubar2 * u1 * u1 - 1.0) / 2.0)
+        multi_minus = (1.0 - 1.5 * ftau_cld * cosb * u1
+                       + gcos2 * (3.0 * ubar2 * ubar2 * u1 * u1 - 1.0) / 2.0)
+    elif controls.multi_phase == 1:  # N=1
+        multi_plus = 1.0 + 1.5 * ftau_cld * cosb * u1
+        multi_minus = 1.0 - 1.5 * ftau_cld * cosb * u1
+    else:  # isotropic: the option the reference enumerates
+        # (justdoit.py:5519) but never implemented — its branch dies
+        # with UnboundLocalError (fluxes.py:1275-1287 has no case 2).
+        # Zeroth-order Legendre expansion: no angular weighting.
+        multi_plus = jnp.ones_like(cosb * u1)
+        multi_minus = multi_plus
+    return multi_plus, multi_minus
+
+
 # ---------------------------------------------------------------------------
 # blackbody sources
 # ---------------------------------------------------------------------------
@@ -193,11 +267,7 @@ def _reflected_one_angle(dtau, tau, w0, cosb, gcos2, ftau_cld, ftau_ray,
     function at the planetary phase angle) are hoisted out of the angle
     vmap by the caller — the reference recomputes them per disk angle
     (fluxes.py:1144-1177, 1298-1373)."""
-    sq3 = jnp.sqrt(3.0).astype(dtau.dtype)
-    if controls.toon_coefficients == 1:  # eddington
-        g3 = (2.0 - 3.0 * ftau_cld * cosb * u0) / 4.0
-    else:  # quadrature
-        g3 = 0.5 * (1.0 - sq3 * ftau_cld * cosb * u0)
+    g3 = _beam_g3(ftau_cld, cosb, u0, controls)
     g4 = 1.0 - g3
     u0b = _dither_u0(lamda, u0)  # beam angle, nudged off the eigenvalue
     denominator = lamda ** 2 - 1.0 / u0b ** 2
@@ -263,22 +333,8 @@ def _reflected_one_angle(dtau, tau, w0, cosb, gcos2, ftau_cld, ftau_ray,
                      + c_plus_down[-1])
         xint_bottom = flux_zero / PI
 
-        # multiple-scattering Legendre terms (fluxes.py:1275-1287)
-        if controls.multi_phase == 0:  # N=2
-            ubar2 = 0.767
-            multi_plus = (1.0 + 1.5 * ftau_cld * cosb * u1
-                          + gcos2 * (3.0 * ubar2 * ubar2 * u1 * u1 - 1.0) / 2.0)
-            multi_minus = (1.0 - 1.5 * ftau_cld * cosb * u1
-                           + gcos2 * (3.0 * ubar2 * ubar2 * u1 * u1 - 1.0) / 2.0)
-        elif controls.multi_phase == 1:  # N=1
-            multi_plus = 1.0 + 1.5 * ftau_cld * cosb * u1
-            multi_minus = 1.0 - 1.5 * ftau_cld * cosb * u1
-        else:  # isotropic: the option the reference enumerates
-            # (justdoit.py:5519) but never implemented — its branch dies
-            # with UnboundLocalError (fluxes.py:1275-1287 has no case 2).
-            # Zeroth-order Legendre expansion: no angular weighting.
-            multi_plus = jnp.ones_like(cosb * u1)
-            multi_minus = multi_plus
+        multi_plus, multi_minus = _multi_phase(controls, ftau_cld, cosb,
+                                               gcos2, u1)
 
         G = positive * (multi_plus + gama * multi_minus) * w0 * (0.5 / PI)
         H = negative * (gama * multi_plus + multi_minus) * w0 * (0.5 / PI)
@@ -333,48 +389,16 @@ def reflected_1d(dtau, tau, w0, cosb, gcos2, ftau_cld, ftau_ray,
     Returns (xint_at_top [ng, nt, nwno] or None,
              FluxSet of [ng, nt, nlevel, nwno] or None).
     """
-    sq3 = jnp.sqrt(3.0).astype(dtau.dtype)
-    if controls.toon_coefficients == 1:  # eddington (fluxes.py:1134)
-        g1 = (7.0 - w0 * (4.0 + 3.0 * ftau_cld * cosb)) / 4.0
-        g2 = -(1.0 - w0 * (4.0 - 3.0 * ftau_cld * cosb)) / 4.0
-    else:  # quadrature (fluxes.py:1137)
-        g1 = (sq3 * 0.5) * (2.0 - w0 * (1.0 + ftau_cld * cosb))
-        g2 = (sq3 * w0 * 0.5) * (1.0 - ftau_cld * cosb)
-    lamda = jnp.sqrt(g1 ** 2 - g2 ** 2)
-    # stable form of (g1 - lamda)/g2 (fluxes.py:1141): multiplying by
-    # (g1 + lamda)/(g1 + lamda) removes the g1 - sqrt(g1^2 - g2^2)
-    # cancellation that explodes at f32 when g2 -> 0 (pure absorption:
-    # 1-ulp rounding of the sqrt flips gama between ~0 and ~2)
-    gama = g2 / (g1 + lamda)
+    g1, g2, lamda, gama = _reflected_coefficients(w0, ftau_cld, cosb,
+                                                  controls)
 
     # angle-independent hoists (the reference recomputes these per angle)
     exptrm = jnp.minimum(lamda * dtau, _exp_clip(dtau.dtype))
     exptrm_positive = jnp.exp(exptrm)
     exptrm_minus = 1.0 / exptrm_positive
 
-    # single-scattering phase function at the phase angle
-    # (fluxes.py:1298-1373)
-    sp = controls.single_phase
-    if sp != 1:
-        g_forward = controls.constant_forward * cosb_og
-        g_back = controls.constant_back * cosb_og
-        f = controls.frac_a + controls.frac_b * g_back ** controls.frac_c
-        HG_fwd = (1 - g_forward ** 2) / jnp.sqrt(
-            (1 + g_forward ** 2 + 2 * g_forward * cos_theta) ** 3)
-        HG_back = (1 - g_back ** 2) / jnp.sqrt(
-            (1 + g_back ** 2 + 2 * g_back * cos_theta) ** 3)
-    if sp == 0:  # cahoy
-        p_single = f * HG_fwd + (1 - f) * HG_back + gcos2
-    elif sp == 1:  # OTHG
-        p_single = (1 - cosb_og ** 2) / jnp.sqrt(
-            (1 + cosb_og ** 2 + 2 * cosb_og * cos_theta) ** 3)
-    elif sp == 2:  # TTHG
-        p_single = f * HG_fwd + (1 - f) * HG_back
-    elif sp == 3:  # TTHG_ray
-        p_single = (ftau_cld * (f * HG_fwd + (1 - f) * HG_back)
-                    + ftau_ray * (0.75 * (1 + cos_theta ** 2.0)))
-    else:
-        raise ValueError(f'unknown single_phase {sp}')
+    p_single = _single_phase(controls, cosb_og, ftau_cld, ftau_ray, gcos2,
+                             cos_theta)
 
     ng, nt = ubar0.shape
     u0_flat = ubar0.reshape(-1)

@@ -4,12 +4,12 @@ Jax port of ``get_transit_1d`` (``/root/reference/picaso/fluxes.py:2582-2663``,
 Brown 2001 eqn 11).  The reference builds the chord-segment matrix with a
 double Python loop per call; here it is one masked broadcast expression, and
 the per-wavelength accumulation is a single [nlevel, nlevel] x
-[nlevel, nwno] matmul that maps straight onto the MXU.
+[nlevel, nwno] matrix product, at full f32 precision.
 
 Numerical note: the chord segment sqrt(outer^2 - ref^2) is computed as
 sqrt((outer-ref)*(outer+ref)) — algebraically identical, but avoids the
 catastrophic cancellation of squaring ~1e9 cm radii first, which keeps the
-kernel accurate in float32 on TPU.
+kernel accurate in float32.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import jax.numpy as jnp
 from ..constants import AMU, K_B
 
 __all__ = ['transit_depth', 'chord_matrix']
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def chord_matrix(z, plevel, tlevel):
@@ -59,8 +61,10 @@ def transit_depth(z, dz, rstar, mmw_layer, plevel, tlevel, colden, dtau):
     M = chord_matrix(z, plevel, tlevel)                     # [nlevel, nlayer]
     # per-layer extinction per unit slant column (fluxes.py:2648-2650)
     xsec = dtau * (mmw_g / colden)[:, None]                 # [nlayer, nwno]
-    tau_slant = 2.0 * M.astype(xsec.dtype) @ xsec           # [nlevel, nwno]
+    tau_slant = 2.0 * jnp.matmul(M.astype(xsec.dtype), xsec,
+                                 precision=HIGHEST)         # [nlevel, nwno]
     transmitted = jnp.exp(-tau_slant)
     F = ((jnp.min(z) / rstar) ** 2
-         + 2.0 / rstar ** 2 * ((1.0 - transmitted).T @ (z * dz)))
+         + 2.0 / rstar ** 2 * jnp.matmul((1.0 - transmitted).T, z * dz,
+                                         precision=HIGHEST))
     return F

@@ -3,10 +3,11 @@
 The reference solves one 2*nlayer tridiagonal system *per wavelength* in a
 Python loop under numba (``fluxes.py:289-323`` tri_diag_solve, called from
 ``fluxes.py:1202-1208`` and ``:1826-1831``).  Here the wavelength axis is the
-TPU vector-lane axis: a single lax.scan over the 2*nlayer rows sweeps *all*
+vectorized axis: a single lax.scan over the 2*nlayer rows sweeps *all*
 wavelengths at once.  2*nlayer is ~120-180, so the scan is short and each
-step is a fused elementwise op over a [nwno] vector -- the whole solve is
-HBM-bandwidth bound, exactly what the VPU wants.
+step is a fused elementwise op over a [nwno] vector.  On a GPU each step
+is a separate small kernel; the fused kernel of :mod:`.toon_kernel` does
+the same elimination inside one program instead.
 
 The elimination order matches the reference bit-for-bit: a *reverse* sweep
 (last row first) followed by a forward substitution, i.e. the mirror image

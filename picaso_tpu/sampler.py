@@ -1,4 +1,4 @@
-"""Samplers for Bayesian retrievals (TPU-native).
+"""Samplers for Bayesian retrievals, vectorized over live points.
 
 The reference farms likelihood evaluations to MPI ranks under dynesty /
 ultranest (driver.py:383-427).  Neither sampler nor MPI is part of this

@@ -2,7 +2,7 @@
 
 The reference delegates cloud microphysics to the external ``virga``
 package (justdoit.py:4269-4533, climate update_clouds).  This module is a
-self-contained TPU-era equivalent of the capability surface the framework
+self-contained equivalent of the capability surface the framework
 needs from it:
 
 * saturation vapor pressure curves for the major condensates

@@ -78,7 +78,7 @@ def conv_non_uniform_R(model_flux, model_wl, R, obs_wl):
 
     The reference loops a Gaussian kernel per observed point; here the
     whole operation is one [nobs, nmodel] kernel matrix applied as a
-    matvec (MXU-friendly; works on numpy or jax arrays and can sit
+    matvec (works on numpy or jax arrays and can sit
     inside a jitted likelihood).
 
     Parameters: model_flux/model_wl [nmodel]; R [nobs] resolving power at

@@ -1,4 +1,4 @@
-"""Timed verbose probe of one climate mode (diagnosis, TPU).
+"""Timed verbose probe of one climate mode (diagnosis).
 
 Usage: python scripts/climate_probe.py [mode]   # chemeq|661|cloudy|diseq
 Prints per-iteration progress with wall-clock stamps.

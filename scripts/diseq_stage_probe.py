@@ -1,4 +1,4 @@
-"""Per-stage timing of one diseq host iteration (TPU diagnosis)."""
+"""Per-stage timing of one diseq host iteration (diagnosis)."""
 import sys
 import time
 

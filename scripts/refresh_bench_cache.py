@@ -4,8 +4,8 @@ Run from the repo root: ``python scripts/refresh_bench_cache.py``.
 Measures (1) the ACTUAL reference implementation's spectra/s (pure numpy
 via the numba shim, wavelength slice scaled to the production grid) and
 (2) this framework's own forward on one CPU host — both in clean
-JAX_PLATFORMS=cpu subprocesses, no TPU needed.  bench.py reads the file
-instead of paying these ~1-5 minute subprocesses inside the TPU bench
+JAX_PLATFORMS=cpu subprocesses, no accelerator needed.  bench.py reads the file
+instead of paying these ~1-5 minute subprocesses inside the bench
 window; refresh whenever the forward program changes materially
 (PICASO_BENCH_REFRESH=1 makes bench.py ignore the cache).
 """

@@ -9,8 +9,8 @@ package.  With numba shimmed to a no-op decorator, every ``@jit`` kernel in
 numpy — byte-for-byte the reference's arithmetic, minus compilation.
 
 This exists solely to power tests/test_reference_parity.py: A/B numerical
-comparison of picaso_tpu against the actual reference implementation
-(VERDICT round 1, missing item #1).  It is test infrastructure, not part of
+comparison of picaso_tpu against the actual reference implementation.
+It is test infrastructure, not part of
 the picaso_tpu package.
 """
 

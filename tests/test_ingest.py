@@ -189,7 +189,7 @@ def test_molecular_ingestion_matches_reference(raw_dir, ref_factory,
 
 def test_ingested_db_roundtrip_spectrum(raw_dir, tmp_path):
     """A DB built from raw cross sections runs end-to-end through
-    opannection -> spectrum (the VERDICT item-4 'done' criterion)."""
+    opannection -> spectrum."""
     from picaso_tpu import justdoit as jdi
 
     root, _, _ = raw_dir

@@ -85,13 +85,13 @@ def test_nc_model_roundtrip(tmp_path):
     case, df, opa = _run_case(tmp_path)
     path = str(tmp_path / 'model.nc')
     jdi.output_xarray(df, case, savefile=path,
-                      add_output={'author': 'tpu tester'})
+                      add_output={'author': 'ncio tester'})
 
     ds = ncio.read_netcdf(path)
     assert ds['albedo'].dims == ('wavelength',)
     assert ds['flux_emission'].dims == ('wavelength',)
     assert ds['opd'].dims == ('pressure_layer', 'wavenumber_layer')
-    assert ds.attrs['author'] == 'tpu tester'
+    assert ds.attrs['author'] == 'ncio tester'
     pp = json.loads(ds.attrs['planet_params'])
     assert np.isclose(pp['mp']['value'], 1.8981245973360505e30, rtol=1e-3)
 

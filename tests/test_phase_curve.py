@@ -44,7 +44,7 @@ def test_batched_matches_serial(setup):
 
 def test_batched_sharded_matches_unsharded(setup):
     """8-virtual-device ('batch', 'wave') mesh reproduces the
-    single-device batched result (VERDICT r1 item #6 done-criterion)."""
+    single-device batched result."""
     opa, case = setup
     single = case.phase_curve(opa, verbose=False, batched=True)
     # 3 phases shard unevenly over batch=1 x wave=8; use wave sharding

@@ -79,7 +79,7 @@ def setup_blue(tmp_path_factory):
                                              ('pollack', 1)])
 def test_fused_raman_matches_stepwise(setup_blue, raman_name, code):
     """Raman modes run the same physics in the fused and stepwise paths
-    (round-1 ADVICE: the fused path silently substituted 'none')."""
+    (the fused path once silently substituted 'none')."""
     opa, case = setup_blue
     case.approx(raman=raman_name)
     # star() precomputes the raman stellar shifts only when the oklopcic

@@ -7,7 +7,7 @@ the same stellar file, and the same bundled base-case profiles.  This
 executes the real reference arithmetic — fluxes.py:1010 (reflected),
 :1683 (thermal), :2582 (transit), :2675/:2979 (SH) under justdoit.picaso
 — against picaso_tpu's pipeline on identical inputs, converting
-"physics-plausible" into "matches the reference" (VERDICT r1 item #2).
+"physics-plausible" into "matches the reference".
 
 Observed agreement (f64, CPU): max relative error ~1e-5 across all five
 modes, dominated by exp/log evaluation-order differences; asserted here
@@ -379,7 +379,7 @@ def test_t_start_trace_parity(ref_jdi, ck_file):
                            '[0,19,29], both converged=1.')
 def test_climate_full_parity(ref_jdi, ck_file):
     """Full brown-dwarf RCE A/B: reference run_chemeq_climate_workflow vs
-    picaso_tpu run_climate on the same CK table (VERDICT r1 item #2)."""
+    picaso_tpu run_climate on the same CK table."""
     ck_path, cont_db = ck_file
     opa_ref = ref_jdi.opannection(method='preweighted', ck_db=ck_path,
                                   filename_db=cont_db)

@@ -208,7 +208,7 @@ def test_sh_precision_f32_matches_f64(stream):
     at both stream counts — the probe-measured error envelope
     (scripts/sh_f32_probe.py: albedo max ~2e-3, thermal max ~2e-3)
     with margin.  This is the accuracy contract behind running SH
-    in-process at f32 on TPU (fluxes.py:3610-3628 is f64-scipy-only)."""
+    in-process at f32 on device (fluxes.py:3610-3628 is f64-scipy-only)."""
     from picaso_tpu.optics import RTProps
     from picaso_tpu.rt.sh import reflected_sh, thermal_sh
     from picaso_tpu.rt.toon import ScatteringControls

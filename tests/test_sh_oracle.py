@@ -5,7 +5,7 @@ inputs: (a) as a dense matrix following the banded-storage index relation
 of the reference fill (fluxes.py:3274-3301 for 2-stream, :3462-3543 for
 4-stream, entry M[i,j] at Mb[u+i-j, j]), and (b) through picaso_tpu's
 block-tridiagonal path — and checks the solutions agree.  This pins the
-TPU solver to the reference system definition without needing scipy's
+JAX solver to the reference system definition without needing scipy's
 banded solver in the hot path.
 """
 
@@ -237,7 +237,7 @@ def test_sh2_solution_matches_reference_system():
         jnp.asarray([u0]), 0)
     X = np.asarray(_solve_sh(T, Fm, z_down, z_up, btv, bsv,
                              jnp.asarray(surf_reflect), 2)[:, :, 0])
-    # the TPU system solves for the per-layer SCALED growing-mode
+    # the JAX system solves for the per-layer SCALED growing-mode
     # coefficient X2' = X2/exptrm (f32 conditioning); unscale to compare
     # against the reference's unscaled unknowns
     X = X.copy()

@@ -90,11 +90,10 @@ def test_thermal_f32_pure_absorption_stable():
 
     gama = (g1 - lamda)/g2 cancels catastrophically when g2 -> 0: a
     1-ulp rounding of sqrt(g1^2 - g2^2) flips gama between ~0 and ~2,
-    which produced thermal fluxes ~100x wrong on TPU.  The stable form
-    g2/(g1 + lamda) must keep f32 within ~1e-3 of f64.  (CPU's correctly
-    rounded sqrt hides the old formula's failure — the discriminating
-    platform is TPU, where rsqrt-based sqrt rounds the other way; this
-    test pins the stable form's accuracy on any backend.)"""
+    which gave thermal fluxes ~100x wrong where sqrt is not correctly
+    rounded.  The stable form g2/(g1 + lamda) must keep f32 within ~1e-3
+    of f64.  (CPU's correctly rounded sqrt hides the old formula's
+    failure; this test pins the stable form's accuracy on any backend.)"""
     import jax
     nlayer, nwno = 30, 20
     dtau64 = np.logspace(-6, 0.5, nlayer)[:, None] * np.ones((1, nwno))
